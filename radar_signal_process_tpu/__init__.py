@@ -1,10 +1,10 @@
-"""radar_signal_process_tpu — a TPU-native pulse-Doppler radar signal-processing framework.
+"""radar_signal_process_tpu — a JAX pulse-Doppler radar signal-processing framework.
 
-A brand-new JAX / XLA / Pallas / pjit implementation of the capabilities of the
+A JAX / XLA implementation of the capabilities of the
 MATLAB reference ``XuZerui2023/Radar-Signal-Process`` (see ``SURVEY.md`` at the
 repo root for the full component inventory and layer map of the reference).
 
-Layer map (TPU-native re-design of the reference's implicit layers):
+Layer map (re-design of the reference's implicit layers):
 
 * ``config``   — typed radar profiles (G0/G1/G2 hardware generations) with
   derived quantities (reference: per-script constants, e.g.
@@ -22,7 +22,7 @@ Layer map (TPU-native re-design of the reference's implicit layers):
   accuracy, localization PCF (reference S4, ``main_cfar.m:163-279``).
 * ``parallel`` — mesh construction, data-parallel and range-sharded execution
   with halo exchange via ``shard_map``/``ppermute``.
-* ``kernels``  — Pallas TPU kernels for the fused hot paths.
+* ``kernels``  — the CPU-only native C++ CFAR cascade.
 * ``utils``    — structured logging, manifests (checkpoint/resume), profiling.
 """
 

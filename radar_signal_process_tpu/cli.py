@@ -684,15 +684,9 @@ def cmd_e2e(args) -> int:
     return 0
 
 
-def cmd_stream(args) -> int:
-    """Streaming chain: overlapped host ingest + compute, all-beam detection.
-
-    Drives ``models.streaming.StreamingPipeline`` (the production fused
-    path: background C++ parse + prefetch, per-frame PC reuse, detection
-    over every (beam, slice), per-frame hit counters and latency stats).
-    """
-    import time as _time
-
+def build_stream_pipeline(args):
+    """The ``StreamingPipeline`` that ``stream`` runs for parsed ``args``
+    (reader, DBF coefficients, mesh, iSTC and matched-filter hooks)."""
     from radar_signal_process_tpu.ingest import G2FrameReader, native_available
     from radar_signal_process_tpu.models.streaming import StreamingPipeline
 
@@ -731,7 +725,7 @@ def cmd_stream(args) -> int:
 
         stc_curve = load_stc_curve(args.istc)
         profile = dc.replace(profile, mtd=dc.replace(profile.mtd, istc=True))
-    pipe = StreamingPipeline(
+    return StreamingPipeline(
         reader_cls(args.input, profile),
         profile,
         win_size=args.win_size,
@@ -745,6 +739,18 @@ def cmd_stream(args) -> int:
         block_windows=args.block_windows,
         emit=args.emit,
     )
+
+
+def cmd_stream(args) -> int:
+    """Streaming chain: overlapped host ingest + compute, all-beam detection.
+
+    Drives ``models.streaming.StreamingPipeline`` (the production fused
+    path: background C++ parse + prefetch, per-frame PC reuse, detection
+    over every (beam, slice), per-frame hit counters and latency stats).
+    """
+    import time as _time
+
+    pipe = build_stream_pipeline(args)
     frames_out = []
     t_prev = _time.perf_counter()
     for res in pipe:
@@ -1237,7 +1243,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from radar_signal_process_tpu.utils.compile_cache import enable_compile_cache
+
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     return args.fn(args)
 
 

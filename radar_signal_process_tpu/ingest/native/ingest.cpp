@@ -1,6 +1,6 @@
 // Native ingest library: cross-file byte-stream splicing + PRT packet parsing.
 //
-// TPU-native equivalent of the reference's L0/L1 layer — the one component
+// Native equivalent of the reference's L0/L1 layer — the one component
 // the reference itself deliberately models on a C++ file-reader class
 // (read_continuous_file_stream.m:2 "模拟 C++ 类的行为"; FrameDataRead_xzr.m).
 // Python binds via ctypes (see native_loader.py); output buffers are

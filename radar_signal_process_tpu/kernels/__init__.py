@@ -1,8 +1,2 @@
-"""Pallas TPU kernels for the fused hot paths."""
-
-from radar_signal_process_tpu.kernels.cfar_pallas import (  # noqa: F401
-    cascaded_cfar2d_pallas,
-)
-from radar_signal_process_tpu.kernels.rdm_pallas import (  # noqa: F401
-    doppler_rdm_pallas,
-)
+"""Hand-written kernels outside XLA: the CPU-only native C++ CFAR cascade
+(``native_cfar``), loaded on demand by ``models.detect``."""

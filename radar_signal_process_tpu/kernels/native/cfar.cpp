@@ -1,14 +1,14 @@
 // Native single-pass cascaded 2-D CFAR for CPU hosts (transposed layout).
 //
-// CPU counterpart of kernels/cfar_pallas.py: XLA CPU streams ~9.6 GB of
-// HBM traffic per G2 frame through the split-executable cascade because
-// every roll/compare pass re-touches memory; this kernel computes the same
+// XLA CPU streams ~9.6 GB of memory traffic per G2 frame through the
+// split-executable cascade because every roll/compare pass re-touches
+// memory; this kernel computes the same
 // flags in one pass over a ~4 MB working set per RDM (renotched crop +
 // flag planes), BIT-IDENTICAL to ops/cfar.py's split form
 // (segmented_cfar_flags + segmented_cfar_select, transposed=True).
 //
 // Parity contract (CLAUDE.md "the CFAR implementations share the exact
-// summation order" — this is the fourth implementation in lockstep):
+// summation order" — this is the third implementation in lockstep):
 //  * reference sums accumulate j = 0..r-1 AWAY from the cell, exactly as
 //    ops/cfar.py::_ref_level_padded: left = u[y-(g+1)] + u[y-(g+2)] + ...,
 //    right = u[y+(g+r)] + u[y+(g+r-1)] + ...; means divide by float(r);

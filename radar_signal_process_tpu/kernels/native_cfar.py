@@ -1,8 +1,8 @@
 """ctypes binding for the native CPU CFAR cascade, with build-on-demand.
 
-CPU counterpart of ``kernels/cfar_pallas.py`` for the host production path:
-``native/cfar.cpp`` computes the cascaded 2-D CFAR (transposed layout) in
-one pass over a ~4 MB working set, bit-identical to the jitted split form
+Native CFAR for the CPU host production path: ``native/cfar.cpp`` computes
+the cascaded 2-D CFAR (transposed layout) in one pass over a ~4 MB working
+set, bit-identical to the jitted split form
 (``ops.cfar.segmented_cfar_flags`` + ``segmented_cfar_select``), where XLA
 CPU streams ~9.6 GB per G2 frame through the same math.  Build/caching
 follows ``ingest/native_loader.py``: compiled on first use to a

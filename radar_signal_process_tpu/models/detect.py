@@ -35,17 +35,13 @@ def detect_rdm(
     n_clutter: int,
     cfg: CFARConfig | None = None,
     renotch_divisor: int | None = 20,
-    use_pallas: bool | None = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """RDM (..., n_v, n_r) -> (cascade flags, velocity-only flags).
 
-    ``use_pallas`` selects the fused whole-RDM-in-VMEM Pallas kernel
-    (default: on TPU backends); the XLA roll-based op otherwise.  Both are
-    bit-identical.
+    One executable with the roll-form cascade (``ops.cfar.segmented_cfar``);
+    the device path on every backend.
     """
     cfg = cfg or profile.cfar
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     if renotch_divisor:
         if profile.mtd.fftshift:
             rdm = zero_velocity_notch(rdm, divisor=renotch_divisor)
@@ -58,20 +54,7 @@ def detect_rdm(
 
             rdm = zero_velocity_notch_unshifted(rdm, n_clutter)
     segments = profile.cfar_segments or ((0, rdm.shape[-1]),)
-    if not use_pallas:
-        return segmented_cfar(rdm, segments, cfg, n_clutter)
-
-    from radar_signal_process_tpu.kernels import cascaded_cfar2d_pallas
-
-    flag_parts, vflag_parts = [], []
-    for start, stop in segments:
-        f, v = cascaded_cfar2d_pallas(rdm[..., start:stop], cfg, n_clutter)
-        flag_parts.append(f)
-        vflag_parts.append(v)
-    return (
-        jnp.concatenate(flag_parts, axis=-1),
-        jnp.concatenate(vflag_parts, axis=-1),
-    )
+    return segmented_cfar(rdm, segments, cfg, n_clutter)
 
 
 def make_split_detector(
@@ -148,7 +131,7 @@ def make_cascade_detector(
 ):
     """:func:`make_split_detector` with an optional native C++ backend.
 
-    The native cascade (``kernels/native/cfar.cpp``) is the fourth lockstep
+    The native cascade (``kernels/native/cfar.cpp``) is the third lockstep
     CFAR implementation — bit-identical flags (``tests/test_native_cfar.py``)
     with no XLA in the loop.  On the session host it measures at PARITY with
     the jitted split form, both per item and inside the streaming chain

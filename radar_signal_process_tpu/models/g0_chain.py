@@ -134,27 +134,6 @@ class G0Chain:
             chain.mtd_window, profile.prt_per_frame, chain.mtd_window_beta
         )
 
-        # ---- fused PC+Doppler operators (SURVEY §7.1(a)) ----
-        # Pulse compression is LTI per PRT row, so each segment's compressor
-        # is one host-precomputed matrix: the 512-pt FFT/scale/IFFT matched
-        # filter (:348-353) and the causal raw-tap FIR Toeplitz (:343-344).
-        # The TPU front contracts echo @ M then the windowed 2048-pt DFT
-        # plane on the MXU with the compressed pulses held in VMEM
-        # (kernels.pc_rdm_pallas) — no HBM round-trip between PC and MTD.
-        from radar_signal_process_tpu.kernels.pc_rdm_pallas import (
-            pc_matrix_fir,
-            pc_matrix_freq_domain,
-        )
-
-        point_short = profile.segment_points[0]
-        point_long = profile.point_prt - point_short
-        self._pc_matrix_long = pc_matrix_freq_domain(
-            self._match_spec, point_long, chain.pc_fft_length
-        )
-        self._pc_matrix_short = pc_matrix_fir(
-            np.asarray(NARROW_PULSE_FIR_TAPS), point_short
-        )
-
         # ---- clutter / scales (:317-327, :462) ----
         delta_doppler = profile.prf / chain.mtd_fft_length
         self._delta_doppler = delta_doppler
@@ -181,14 +160,14 @@ class G0Chain:
         self.k_value = float(params.k_value)
 
         # XLA CPU re-computes fused producers into every consumer within one
-        # executable (see docs/tpu_design.md), so on CPU the chain runs as
+        # executable (see docs/design.md), so on CPU the chain runs as
         # Python-composed stage executables with the split CFAR cascade —
         # measured ~2.2x the one-executable form, bit-identical results.
-        # TPU keeps the single jit (Pallas RDM/CFAR kernels inside).
+        # The GPU runs the one-executable form: 2.39 ms per frame against
+        # 3.20 ms split on an H100 at 700 W (chip_smoke.py times both).
         if use_split is None:
-            use_split = jax.default_backend() != "tpu"
+            use_split = jax.default_backend() == "cpu"
         self._use_split = use_split
-        import functools
 
         # n_clutter is static (it sets notch/CFAR crop geometry); the
         # frequency/beam-dependent scalars are traced via G0FrameParams, so
@@ -287,48 +266,14 @@ class G0Chain:
         return jnp.fft.fft(mf * w[None, :, None], self.chain.mtd_fft_length, axis=-2)
 
     def _mtd_mag(self, mf: jnp.ndarray) -> jnp.ndarray:
-        """|MTD FFT| per beam; fused MXU-DFT kernel on TPU (zero-padding and
-        the Hamming window folded into the tiled DFT plane)."""
-        if jax.default_backend() == "tpu":
-            from radar_signal_process_tpu.kernels.rdm_pallas import (
-                doppler_rdm_pallas,
-            )
-
-            return doppler_rdm_pallas(
-                mf, self._mtd_window, notch_divisor=None, shift=False,
-                n_fft=self.chain.mtd_fft_length,
-            )
+        """|MTD FFT| per beam."""
         return jnp.abs(self._mtd(mf))
-
-    def _front_fused(self, left: jnp.ndarray, right: jnp.ndarray):
-        """Fused echo -> |RDM| per segment (kernels.pc_rdm_pallas): PC
-        matrix-contraction + windowed zero-padded Doppler DFT + magnitude in
-        one Pallas pass, compressed pulses resident in VMEM."""
-        from radar_signal_process_tpu.kernels.pc_rdm_pallas import (
-            fused_pc_rdm_pallas,
-        )
-
-        prof, chain = self.profile, self.chain
-        point_short = prof.segment_points[0]
-        beams = jnp.stack([left, right])
-        abs_short = fused_pc_rdm_pallas(
-            beams[..., :point_short], self._pc_matrix_short,
-            self._mtd_window, chain.mtd_fft_length, shift=False,
-        )
-        abs_long = fused_pc_rdm_pallas(
-            beams[..., point_short:], self._pc_matrix_long,
-            self._mtd_window, chain.mtd_fft_length, shift=False,
-        )
-        return abs_short, abs_long
 
     def _front_impl(self, left: jnp.ndarray, right: jnp.ndarray, n_clutter: int):
         """PC -> |MTD| -> monopulse sum/diff -> clutter notch."""
-        if jax.default_backend() == "tpu":
-            abs_short, abs_long = self._front_fused(left, right)
-        else:
-            short_mf, long_mf = self._pc(left, right)
-            abs_short = self._mtd_mag(short_mf)   # (2, mtd_fft, point_short)
-            abs_long = self._mtd_mag(long_mf)     # (2, mtd_fft, pc_fft)
+        short_mf, long_mf = self._pc(left, right)
+        abs_short = self._mtd_mag(short_mf)   # (2, mtd_fft, point_short)
+        abs_long = self._mtd_mag(long_mf)     # (2, mtd_fft, pc_fft)
         sum_short = abs_short[0] + abs_short[1]     # |L| + |R| (:421-422)
         sum_long = abs_long[0] + abs_long[1]
         diff_short = abs_short[1] - abs_short[0]    # |R| - |L| (:425-426)
@@ -352,18 +297,8 @@ class G0Chain:
             left, right, n_clutter
         )
 
-        if jax.default_backend() == "tpu":
-            from radar_signal_process_tpu.kernels import cascaded_cfar2d_pallas
-
-            flags_s, vflags_s = cascaded_cfar2d_pallas(
-                sum_short.astype(jnp.float32), cfar, n_clutter
-            )
-            flags_l, vflags_l = cascaded_cfar2d_pallas(
-                sum_long.astype(jnp.float32), cfar, n_clutter
-            )
-        else:
-            flags_s, vflags_s = cascaded_cfar2d(sum_short, cfar, n_clutter)
-            flags_l, vflags_l = cascaded_cfar2d(sum_long, cfar, n_clutter)
+        flags_s, vflags_s = cascaded_cfar2d(sum_short, cfar, n_clutter)
+        flags_l, vflags_l = cascaded_cfar2d(sum_long, cfar, n_clutter)
 
         dets_s, dets_l, meas_s, meas_l = self._finish_impl(
             sum_short, sum_long, diff_short, diff_long, flags_s, flags_l,

@@ -2,13 +2,13 @@
 
 XLA's CPU backend executes the thunks of one executable sequentially and
 re-computes fused elementwise producers into every CFAR consumer (see
-``docs/tpu_design.md`` — "CPU-backend execution findings"), so on CPU the
+``docs/design.md`` — "CPU-backend execution findings"), so on CPU the
 frame pipeline runs fastest as SEPARATE jitted stage executables dispatched
 from host threads over beam chunks.  Outputs are identical to the batched
 jitted path (per-row FFTs and elementwise chains are deterministic and
 row-independent); ``tests/test_host_parallel.py`` pins that.
 
-These helpers are used by the CLI when the backend is CPU; TPU paths keep
+These helpers are used by the CLI when the backend is CPU; the GPU keeps
 the single batched jit (`make_frame_processor` / `make_detector`).
 """
 

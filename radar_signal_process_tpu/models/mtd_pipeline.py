@@ -6,10 +6,10 @@ and the windowing driver (``MTD/main_produce_dataset_win_xzr_v2.m:75-136``):
 two consecutive frames are concatenated along slow time to double the CPI,
 and ``win_size`` overlapping slices are processed per beam.
 
-TPU-first design: the reference runs 13 beams x 4 slices = 52 sequential MTD
-calls per frame.  Here the (beam, slice) axes are plain batch dimensions of
-one jitted function — XLA sees a single large batched FFT workload and
-schedules it across the chip.
+The reference runs 13 beams x 4 slices = 52 sequential MTD calls per frame.
+Here the (beam, slice) axes are plain batch dimensions of one jitted
+function — XLA sees a single large batched FFT workload and schedules it
+across the device.
 """
 
 from __future__ import annotations
@@ -27,32 +27,16 @@ from radar_signal_process_tpu.ops.waveforms import reference_pulses
 from radar_signal_process_tpu.ops.windows import make_window
 
 
-def _form_rdm(
-    pc: jnp.ndarray,
-    profile: RadarProfile,
-    use_pallas_rdm: bool | None = None,
-) -> jnp.ndarray:
+def _form_rdm(pc: jnp.ndarray, profile: RadarProfile) -> jnp.ndarray:
     """Compressed pulses (..., n_pulses, n_pts) -> notched magnitude RDM.
 
     The shared RDM-former tail of :func:`mtd_produce` and
-    :func:`mtd_window_produce`: slow-time window, Doppler transform (fused
-    Pallas MXU-DFT kernel on TPU, XLA FFT otherwise) and zero-velocity
-    notch.
+    :func:`mtd_window_produce`: slow-time window, Doppler FFT and
+    zero-velocity notch.
     """
     n_pulses = pc.shape[-2]
     n_fft = profile.mtd.fft_length or n_pulses
     window = make_window(profile.mtd.window, n_pulses, profile.mtd.window_beta)
-    if use_pallas_rdm is None:
-        # the fused kernel tiles its DFT plane over Doppler rows, so any
-        # CPI length fits the Mosaic VMEM budget
-        use_pallas_rdm = jax.default_backend() == "tpu" and profile.mtd.fftshift
-    if use_pallas_rdm and profile.mtd.fftshift:
-        from radar_signal_process_tpu.kernels.rdm_pallas import doppler_rdm_pallas
-
-        return doppler_rdm_pallas(
-            pc, window, notch_divisor=profile.mtd.notch_divisor or None,
-            shift=True, n_fft=n_fft,
-        )
     rdm = doppler_process(pc, window, n_fft=n_fft, shift=profile.mtd.fftshift)
     if profile.mtd.notch_divisor:
         rdm = zero_velocity_notch(rdm, divisor=profile.mtd.notch_divisor)
@@ -63,7 +47,6 @@ def mtd_produce(
     echo: jnp.ndarray,
     profile: RadarProfile,
     stc_curve_db=None,
-    use_pallas_rdm: bool | None = None,
     pulses=None,
 ) -> jnp.ndarray:
     """Echo (..., n_pulses, point_prt) -> magnitude RDM of the same shape.
@@ -85,7 +68,7 @@ def mtd_produce(
     pc = segmented_pulse_compression(echo, profile, pulses)
     if profile.mtd.mti_lag:
         pc = mti_cancel(pc, lag=profile.mtd.mti_lag)
-    return _form_rdm(pc, profile, use_pallas_rdm)
+    return _form_rdm(pc, profile)
 
 
 def window_slice_starts(prts_per_slice: int, win_size: int) -> Tuple[int, ...]:
@@ -110,7 +93,6 @@ def mtd_window_produce(
     profile: RadarProfile,
     win_size: int = 4,
     stc_curve_db=None,
-    use_pallas_rdm: bool | None = None,
     pulses=None,
 ) -> jnp.ndarray:
     """Doubled-CPI window (..., 2*n_prt, n_pts) -> (..., win_size, n_prt, n_pts) RDMs.
@@ -132,7 +114,7 @@ def mtd_window_produce(
     pc = slice_cpi_window(pc_win, win_size)         # (..., win, n_prt, n_pts)
     if profile.mtd.mti_lag:
         pc = mti_cancel(pc, lag=profile.mtd.mti_lag)
-    return _form_rdm(pc, profile, use_pallas_rdm)
+    return _form_rdm(pc, profile)
 
 
 def make_frame_processor(

@@ -81,8 +81,8 @@ class StreamingPipeline:
         self.max_frames = max_frames
         self.counters = Counters()
         # CPU backends run the frame chain as host-threaded composed stage
-        # executables (see models/host_parallel.py); TPU keeps the single
-        # batched jit with the fused Pallas kernels.
+        # executables (see models/host_parallel.py); the GPU runs the
+        # windowed single-jit frame processor and batched detector.
         if use_host_parallel is None:
             use_host_parallel = jax.default_backend() == "cpu"
         n_clutter = clutter_cells(profile, profile.prt_per_frame, clutter_v)
@@ -231,7 +231,7 @@ class StreamingPipeline:
             if not res.frame_completed:
                 break
             if self.dbf_coeffs is not None:
-                # channels -> beams on device (MXU einsum), overlapped
+                # channels -> beams on device (one einsum), overlapped
                 # with the consumer's compute
                 from radar_signal_process_tpu.ops.dbf import apply_dbf
 
@@ -367,7 +367,7 @@ class StreamingPipeline:
                 self.counters.add("windows_processed")
                 self.counters.add("cfar_hits", hits)
                 # reduced emission modes drop the stacks at the yield
-                # boundary (the mesh/TPU windowed paths compute them on
+                # boundary (the mesh and GPU windowed paths compute them on
                 # device either way; the deep materialization savings are
                 # the CPU block-pipelined path's)
                 if self._emit == "detections":

@@ -15,14 +15,15 @@ Replicated reference semantics (file:line):
 * per-pulse-segment CFAR over the concatenated RDM —
   ``CFAR_WangCai/main_cfar.m:142-161``.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 The reference's range-dim pass is data-dependent (it only runs at velocity-hit
-positions) — irregular work that maps poorly onto the TPU.  We use the dense
-masked formulation planned in SURVEY.md §7.3: compute the range-dim CFAR flag
-*everywhere* with the same vectorized sliding-mean machinery, then intersect
-with the velocity hits and resolve the "strongest confirmed neighbor" rule
-with a static 3-way shifted argmax.  Identical outputs, fully regular compute.
+positions) — irregular work that maps poorly onto a vector accelerator.  We
+use the dense masked formulation planned in SURVEY.md §7.3: compute the
+range-dim CFAR flag *everywhere* with the same vectorized sliding-mean
+machinery, then intersect with the velocity hits and resolve the "strongest
+confirmed neighbor" rule with a static 3-way shifted argmax.  Identical
+outputs, fully regular compute.
 
 Sliding reference sums are built from ``2*ref_cells`` static rolls (exact
 arithmetic, no cumsum error accumulation; XLA fuses the adds into one

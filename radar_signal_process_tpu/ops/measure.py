@@ -6,14 +6,16 @@ velocity), the interpolated peak gives the sub-bin position, and the monopulse
 sum/difference ratio gives the elevation angle
 (``motionParaMeasure.m:22-82``).
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 * MATLAB ``interp1(..., 'spline')`` is a *not-a-knot* cubic spline.  For a
   fixed support size K and upsample factor u on uniform knots, both the spline
   solve and the evaluation are linear in the sample values, so the whole
   interpolation collapses to one constant ``(Q, K)`` matrix built host-side
   (``spline_eval_matrix``).  Per-detection interpolation on device is then a
-  single small matmul — no iterative solves, no dynamic shapes.
+  single small matmul — no iterative solves, no dynamic shapes.  The
+  matmuls run at ``HIGHEST`` precision: on a GPU a float32 product may
+  otherwise run in TF32, and the sub-bin estimates read the spline's peak.
 * Detections are irregular; we densify them into a fixed-capacity padded list
   (``extract_detections``) ordered by amplitude, and ``vmap`` the
   per-detection measurement.  Everything stays on device and jit-compatible.
@@ -27,6 +29,8 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 # --------------------------------------------------------------------- spline
@@ -81,7 +85,7 @@ def spline_eval_matrix(n_knots: int, upsample: int) -> np.ndarray:
 def spline_interp_notaknot(y: jnp.ndarray, upsample: int) -> jnp.ndarray:
     """Not-a-knot cubic-spline upsampling along the last axis (matmul form)."""
     p = spline_eval_matrix(y.shape[-1], upsample)
-    return y @ jnp.asarray(p, dtype=y.dtype).T
+    return jnp.matmul(y, jnp.asarray(p, dtype=y.dtype).T, precision=_HIGHEST)
 
 
 # ----------------------------------------------------------------- detections
@@ -175,7 +179,7 @@ def motion_parameters(
         # ---- range estimate (motionParaMeasure.m:22-46) ----
         r_start = jnp.clip(r - extra_dots, 0, nr - w)
         row = jax.lax.dynamic_slice(rdm_sum, (v, r_start), (1, w))[0]
-        fine = row @ p_r.T
+        fine = jnp.matmul(row, p_r.T, precision=_HIGHEST)
         i1 = jnp.argmax(fine)
         r_cell_max = r_start.astype(rdm_sum.dtype) + i1.astype(rdm_sum.dtype) / r_interp
         r_est = r_scale[r] + (r_cell_max - r.astype(rdm_sum.dtype)) * delta_r
@@ -185,7 +189,7 @@ def motion_parameters(
         v_hi = nv - n_clutter - 1 - (w - 1)
         v_start = jnp.clip(v - extra_dots, v_lo, v_hi)
         col = jax.lax.dynamic_slice(rdm_sum, (v_start, r), (w, 1))[:, 0]
-        fine_v = col @ p_v.T
+        fine_v = jnp.matmul(col, p_v.T, precision=_HIGHEST)
         i2 = jnp.argmax(fine_v)
         v_cell_max = v_start.astype(rdm_sum.dtype) + i2.astype(rdm_sum.dtype) / v_interp
         v_int = jnp.floor(v_cell_max).astype(jnp.int32)

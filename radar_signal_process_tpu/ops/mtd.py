@@ -24,32 +24,6 @@ import numpy as np
 from radar_signal_process_tpu.config import matlab_round
 
 
-import functools
-
-
-@functools.lru_cache(maxsize=None)
-def _dft_matrix_rect(n_fft: int, n: int, shift: bool, window_key) -> np.ndarray:
-    """(n_fft, n) windowed (optionally fftshift'ed) DFT plane, host-built.
-
-    ``n_fft > n`` folds zero-padding into a rectangular plane; ``n_fft == n``
-    is the plain square DFT matrix.  The single implementation keeps the XLA
-    matmul path and the Pallas kernel bit-aligned.
-    """
-    k = np.arange(n_fft)[:, None]
-    m = np.arange(n)[None, :]
-    w_mat = np.exp(-2j * np.pi * k * m / n_fft)
-    if shift:
-        w_mat = np.fft.fftshift(w_mat, axes=0)
-    if window_key is not None:
-        w_mat = w_mat * np.asarray(window_key)[None, :]
-    return w_mat
-
-
-def _dft_matrix(n: int, shift: bool, window_key) -> np.ndarray:
-    """Square windowed DFT matrix (the ``n_fft == n`` case)."""
-    return _dft_matrix_rect(n, n, shift, window_key)
-
-
 def doppler_process(
     pc: jnp.ndarray,
     window: np.ndarray,
@@ -57,7 +31,6 @@ def doppler_process(
     shift: bool = True,
     magnitude: bool = True,
     pulse_axis: int = -2,
-    use_matmul: bool | None = None,
 ) -> jnp.ndarray:
     """Slow-time FFT over the pulse axis, forming the range-Doppler map.
 
@@ -65,34 +38,12 @@ def doppler_process(
     length-``n_pulses`` slow-time taper (reference ``kaiser(N, 8)``).
     Returns the magnitude RDM (default) matching ``fun_Process_MTD``.
 
-    TPU note: the reference CPI lengths (332, 1536) are not powers of two,
-    which XLA lowers to Bluestein FFTs on TPU.  For moderate N the DFT as a
-    dense matmul — window and fftshift folded into a precomputed (N, N)
-    matrix, contraction on the MXU — is faster and numerically equivalent;
-    ``use_matmul=None`` auto-selects it on TPU backends when ``N <= 2048``
-    and no zero-padding is requested.
+    The non-power-of-two CPI lengths (332, 1536) go to the FFT library as
+    they are; XLA fuses the window multiply and the magnitude around it.
     """
-    import jax
-
     n_pulses = pc.shape[pulse_axis]
     if window.shape[0] != n_pulses:
         raise ValueError(f"window length {window.shape[0]} != n_pulses {n_pulses}")
-    if use_matmul is None:
-        use_matmul = (
-            jax.default_backend() == "tpu"
-            and (n_fft is None or n_fft == n_pulses)
-            and n_pulses <= 2048
-        )
-    if use_matmul and (n_fft is None or n_fft == n_pulses):
-        dft = jnp.asarray(
-            _dft_matrix(n_pulses, shift, tuple(np.asarray(window).tolist())),
-            dtype=(jnp.complex128 if pc.dtype == jnp.complex128 else jnp.complex64),
-        )
-        pc_m = jnp.moveaxis(pc, pulse_axis, -2)
-        spec = jnp.einsum("kn,...nr->...kr", dft, pc_m.astype(dft.dtype))
-        spec = jnp.moveaxis(spec, -2, pulse_axis)
-        return jnp.abs(spec) if magnitude else spec
-
     w_shape = [1] * pc.ndim
     w_shape[pulse_axis % pc.ndim] = n_pulses
     w = jnp.asarray(window, dtype=jnp.real(pc).dtype).reshape(w_shape)

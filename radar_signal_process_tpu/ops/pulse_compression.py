@@ -1,14 +1,14 @@
 """Pulse compression: matched filtering and narrow-pulse FIR compression.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 The reference compresses one PRT at a time in a Python-style loop
 (``MTD/fun_lss_pulse_compression.m:36-78``).  Here every op operates on the
 *last axis* of an arbitrarily-batched array, so a whole frame
 (``(n_pulses, n_samples)``) — or a whole beam x slice batch — is compressed
-with a handful of large batched FFTs that XLA maps directly onto the TPU.
-FFT lengths are padded to powers of two (linear convolution is exact for any
-FFT length >= N+M-1) so XLA picks its fastest kernels.
+with a handful of large batched FFTs.  FFT lengths are padded to 5-smooth
+sizes (linear convolution is exact for any FFT length >= N+M-1), see
+:func:`_fft_len`.
 
 Replicated reference semantics (file:line):
 
@@ -59,17 +59,14 @@ def _next_5smooth(n: int) -> int:
 
 
 def _fft_len(conv_len: int) -> int:
-    """Backend-aware FFT length for linear convolution.
+    """FFT length for linear convolution: the smallest 5-smooth size.
 
-    TPU FFTs want powers of two (anything else lowers to Bluestein); CPU
-    pocketfft is fastest at 5-smooth sizes (measured 2.2x on the G2 long
-    segment: 3168 vs 4096).  Any length >= conv_len gives exact linear
-    convolution, so this only affects speed.
+    One rule on every backend.  Any length >= conv_len gives exact linear
+    convolution, so this only affects speed.  On the CPU, pocketfft is
+    fastest at 5-smooth sizes (measured 2.2x on the G2 long segment on a
+    2-core sandbox CPU: 3168 vs 4096).  cuFFT also has fast 2/3/5 radices,
+    but the GPU length (5-smooth against power of two) is not yet measured.
     """
-    import jax
-
-    if jax.default_backend() == "tpu":
-        return _next_pow2(conv_len)
     return _next_5smooth(conv_len)
 
 

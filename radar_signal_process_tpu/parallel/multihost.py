@@ -1,10 +1,10 @@
 """Multi-host (DCN) scale-out helpers.
 
-Intra-slice parallelism rides ICI collectives (``sharding.py``); scaling to
-multiple hosts uses ``jax.distributed`` + a global mesh whose ``dp`` axis
-spans hosts (frames/beams are embarrassingly parallel across the DCN, halo
-exchange stays intra-slice).  This module wires the standard initialization
-and provides host-local frame assignment for the streaming pipeline.
+Intra-host parallelism rides device collectives (``sharding.py``); scaling
+to multiple hosts uses ``jax.distributed`` + a global mesh whose ``dp`` axis
+spans hosts (frames/beams are embarrassingly parallel across the network,
+halo exchange stays within a host).  This module wires the standard
+initialization and provides host-local frame assignment for the streaming pipeline.
 
 There is no multi-host hardware in CI; the logic here is the documented
 production path, with the single-process degenerate case tested.

@@ -5,7 +5,8 @@ data parallelism ("dp" axis); the range axis is the sequence-parallel ("sp")
 axis.  Pulse compression runs PRT-sharded (fast time local), an ``all_to_all``
 re-shards to range so the slow-time Doppler FFT is local per range bin, and
 the CFAR range dimension exchanges its reference/guard-cell halos with
-neighbor shards via ``ppermute`` — ICI traffic only, no host round-trips.
+neighbor shards via ``ppermute`` — device-to-device collectives only, no host
+round-trips.
 
 Halo discipline for the exact cascade: a cell's cascade mark depends on
 winners within ±E cells, winners depend on candidate flags within ±E, and a
@@ -557,10 +558,8 @@ def make_pipeline_parallel(
 
     Returns ``run(echo) -> (rdm, flags)`` for ``echo`` of shape
     ``(n_micro, n_pulses, n_points)``; results are bit-identical to the
-    unsharded ``mtd_produce`` + ``segmented_cfar`` chain *with the FFT
-    Doppler algorithm* (all depths pin ``use_matmul=False``; on TPU the
-    unsharded chain auto-selects the matmul-DFT, which differs at ULP
-    level from any FFT implementation).
+    unsharded ``mtd_produce`` + ``segmented_cfar`` chain (every depth runs
+    the same FFT Doppler transform).
     """
     cfg = cfg or profile.cfar
     pulses = reference_pulses(profile)
@@ -619,8 +618,8 @@ def make_pipeline_parallel(
             return segments or ((0, rdm.shape[-1]),)
 
         def s_rdm_cfar(x):      # 2-stage tail: PC activation in
-            # pin the FFT algorithm (not the TPU matmul-DFT auto-path) so
-            # all pipeline depths produce identical bits on every backend
+            # the same FFT Doppler transform at every pipeline depth, so
+            # all depths produce identical bits on every backend
             rdm = _notched(jnp.abs(_spec(x)))
             flags, _ = segmented_cfar(rdm, _segs(rdm), cfg, n_clutter)
             return rdm + 1j * flags.astype(jnp.float32)

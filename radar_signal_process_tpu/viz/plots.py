@@ -11,7 +11,7 @@
   marker, velocity cut and range cut through the peak
   (``fun_plot_mtd_dashboard.m:36-81``).
 
-matplotlib imports are deferred so headless/TPU jobs never pay for them;
+matplotlib imports are deferred so headless device jobs never pay for them;
 every function accepts ``save_path`` for file output (Agg backend).
 """
 

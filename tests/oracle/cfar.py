@@ -37,6 +37,25 @@ def cfar1d_sub(
     return out
 
 
+def cfar1d_ref_levels(
+    datamatrix: np.ndarray, ref_cells: int, guard_cells: int, method: int
+) -> np.ndarray:
+    """The reference level ``cfar1d_sub`` compares each cell against (before
+    the threshold factor), with the same edge fallback; along columns."""
+    rows, cols = datamatrix.shape
+    out = np.zeros((rows, cols))
+    g, r = guard_cells, ref_cells
+    for y in range(cols):
+        lo_l, hi_l = y - (g + r), y - g
+        lo_r, hi_r = y + g + 1, y + g + r + 1
+        left = (datamatrix[:, lo_l:hi_l] if lo_l >= 0
+                else datamatrix[:, lo_r:hi_r]).mean(axis=1)
+        right = (datamatrix[:, lo_r:hi_r] if hi_r <= cols
+                 else datamatrix[:, lo_l:hi_l]).mean(axis=1)
+        out[:, y] = np.maximum(left, right) if method == 0 else np.minimum(left, right)
+    return out
+
+
 def execute_cfar(
     rdm: np.ndarray,
     ref_r: int,

@@ -82,3 +82,44 @@ def range_concatenate_g1(pc: np.ndarray) -> np.ndarray:
     out[:, 82:318] = pc[:, 89:325]      # MATLAB 83+(82-75) : 325
     out[:, 318:868] = pc[:, 481:1031]   # MATLAB 325+(82+235-160) : 1031
     return out
+
+
+def g0_sum_rdm(
+    left: np.ndarray,
+    right: np.ndarray,
+    point_short: int,
+    fir_taps: np.ndarray,
+    match_spec: np.ndarray,
+    mtd_fft: int,
+    n_clutter: int,
+):
+    """DMX_SignalProcessing_main_xzr.m:343-465 per PRT and per range bin:
+    raw-tap causal FIR on the short segment, circular frequency-domain
+    matched filter on the long one, Hamming-windowed unshifted Doppler FFT,
+    monopulse sum |L| + |R|, unshifted clutter rows zeroed.
+
+    Returns (sum_short, sum_long)."""
+    n_prt = left.shape[0]
+    n_pc = len(match_spec)
+    window = np.hamming(n_prt)
+    sums = []
+    for seg in ("short", "long"):
+        mags = []
+        for beam in (left, right):
+            width = point_short if seg == "short" else n_pc
+            pc = np.zeros((n_prt, width), dtype=np.complex128)
+            for i in range(n_prt):
+                if seg == "short":
+                    pc[i] = fir_filter_causal(fir_taps, beam[i, :point_short])
+                else:
+                    spec = np.fft.fft(beam[i, point_short:], n_pc)
+                    pc[i] = np.fft.ifft(spec * match_spec)
+            rdm = np.zeros((mtd_fft, width))
+            for j in range(width):
+                rdm[:, j] = np.abs(np.fft.fft(pc[:, j] * window, mtd_fft))
+            mags.append(rdm)
+        total = mags[0] + mags[1]
+        total[: n_clutter + 1, :] = 0.0
+        total[mtd_fft - n_clutter :, :] = 0.0
+        sums.append(total)
+    return sums[0], sums[1]

@@ -1,6 +1,6 @@
 """Bench self-consistency: the CPU threaded chain == the batched chain.
 
-The headline number must time the same computation the batched (TPU-path)
+The headline number must time the same computation the batched (device-path)
 chain performs; both reduce to (sum(rdms), sum(flags)) per frame.
 """
 

@@ -242,27 +242,3 @@ def test_dmx_cli_spectral_width(tmp_path, rng, capsys):
     # column can never fill the whole axis
     assert max(widths) < chain_cfg.mtd_fft_length / 2
 
-
-def test_g0_fused_front_matches_fft_front(rng):
-    """The fused Pallas PC+Doppler front (TPU path) numerically matches the
-    XLA FFT front on the full G0 geometry."""
-    import jax.numpy as jnp
-
-    prof = G0_PROFILE
-    chain = G0Chain(prof, G0ChainConfig(), 5, 0)
-    shape = (prof.prt_per_frame, prof.point_prt)
-    left = (rng.standard_normal(shape)
-            + 1j * rng.standard_normal(shape)).astype(np.complex64)
-    right = (rng.standard_normal(shape)
-             + 1j * rng.standard_normal(shape)).astype(np.complex64)
-
-    short_mf, long_mf = chain._pc(jnp.asarray(left), jnp.asarray(right))
-    want_s = np.asarray(jnp.abs(chain._mtd(short_mf)))
-    want_l = np.asarray(jnp.abs(chain._mtd(long_mf)))
-    got_s, got_l = chain._front_fused(jnp.asarray(left), jnp.asarray(right))
-    got_s, got_l = np.asarray(got_s), np.asarray(got_l)
-    assert got_s.shape == want_s.shape and got_l.shape == want_l.shape
-    np.testing.assert_allclose(got_s / want_s.max(), want_s / want_s.max(),
-                               atol=5e-5)
-    np.testing.assert_allclose(got_l / want_l.max(), want_l / want_l.max(),
-                               atol=5e-5)

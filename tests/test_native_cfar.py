@@ -1,6 +1,6 @@
 """Native C++ CFAR cascade == jitted split cascade, exactly.
 
-The native kernel (kernels/native/cfar.cpp) is the FOURTH lockstep CFAR
+The native kernel (kernels/native/cfar.cpp) is the THIRD lockstep CFAR
 implementation (CLAUDE.md parity conventions): bit-identical flags to
 ops.cfar's split form on every input class, including the notched all-zero
 rows that self-flag (0 >= 0) and the edge-validity fallbacks.

@@ -114,13 +114,6 @@ def test_cascade_tie_break_on_equal_amplitudes(rng):
     np.testing.assert_array_equal(np.asarray(vflags), want_v.astype(bool))
     np.testing.assert_array_equal(np.asarray(flags), want_f.astype(bool))
 
-    # the fused Pallas kernel must make the same tie-break choices
-    from radar_signal_process_tpu.kernels.cfar_pallas import cascaded_cfar2d_pallas
-
-    pf, pv = cascaded_cfar2d_pallas(jnp.asarray(rdm, jnp.float32), cfg, 4)
-    np.testing.assert_array_equal(np.asarray(pv), want_v.astype(bool))
-    np.testing.assert_array_equal(np.asarray(pf), want_f.astype(bool))
-
 
 def test_cascade_tie_break_fast_path_equals_loop_path(rng):
     """The ext==1 fused form and the general loop form agree on tie-heavy data.
@@ -218,14 +211,14 @@ def test_make_split_detector_matches_detect_rdm(rng):
         np.abs(rng.standard_normal((2, 120, 300))).astype(np.float32) + 0.2
     )
     prof = dataclasses.replace(G2_PROFILE, cfar_segments=((0, 90), (90, 300)))
-    want_f, want_v = detect_rdm(rdm, prof, 11, cfg=cfg, use_pallas=False)
+    want_f, want_v = detect_rdm(rdm, prof, 11, cfg=cfg)
     det = make_split_detector(prof, 11, cfg=cfg)
     got_f, got_v = det(rdm)
     np.testing.assert_array_equal(np.asarray(got_f), np.asarray(want_f))
     np.testing.assert_array_equal(np.asarray(got_v), np.asarray(want_v))
 
     prof0 = dataclasses.replace(G0_PROFILE, cfar_segments=None)
-    want_f, want_v = detect_rdm(rdm, prof0, 11, cfg=cfg, use_pallas=False)
+    want_f, want_v = detect_rdm(rdm, prof0, 11, cfg=cfg)
     det0 = make_split_detector(prof0, 11, cfg=cfg)
     got_f, got_v = det0(rdm)
     np.testing.assert_array_equal(np.asarray(got_f), np.asarray(want_f))
@@ -286,7 +279,7 @@ def test_doppler_range_major_and_transposed_detector(rng):
 
     prof = dataclasses.replace(G2_PROFILE, cfar_segments=((0, 90), (90, 300)))
     cfg = CFARConfig(threshold=5.0)
-    want_f, want_v = detect_rdm(rdm, prof, 7, cfg=cfg, use_pallas=False)
+    want_f, want_v = detect_rdm(rdm, prof, 7, cfg=cfg)
     det_t = make_split_detector(prof, 7, cfg=cfg, transposed=True)
     got_f, got_v = det_t(rdm_t)
     np.testing.assert_array_equal(np.asarray(got_f).T, np.asarray(want_f))

@@ -71,17 +71,3 @@ def test_istc_compensate(rng):
     np.testing.assert_allclose(got, echo * gain, rtol=1e-12)
 
 
-def test_doppler_matmul_path_matches_fft(rng):
-    """The MXU DFT-by-matmul path must match the FFT path numerically."""
-    pc = rng.standard_normal((2, 96, 40)) + 1j * rng.standard_normal((2, 96, 40))
-    w = make_window("kaiser", 96, 8.0)
-    a = np.asarray(doppler_process(jnp.asarray(pc), w, use_matmul=False))
-    b = np.asarray(doppler_process(jnp.asarray(pc), w, use_matmul=True))
-    np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-9)
-    c = np.asarray(
-        doppler_process(jnp.asarray(pc), w, shift=False, use_matmul=True)
-    )
-    d = np.asarray(
-        doppler_process(jnp.asarray(pc), w, shift=False, use_matmul=False)
-    )
-    np.testing.assert_allclose(c, d, rtol=1e-9, atol=1e-9)

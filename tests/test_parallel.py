@@ -444,7 +444,7 @@ def test_pipeline_parallel_g0_geometry(rng, depth):
     rdm_pp, flags_pp = run(jnp.asarray(echo))
     assert rdm_pp.shape == (5, 64, prof.point_prt)
 
-    rdm_u = mtd_produce(jnp.asarray(echo), prof, use_pallas_rdm=False)
+    rdm_u = mtd_produce(jnp.asarray(echo), prof)
     flags_u, _ = segmented_cfar(rdm_u, ((0, prof.point_prt),), cfg, 3)
     np.testing.assert_array_equal(np.asarray(rdm_pp), np.asarray(rdm_u))
     np.testing.assert_array_equal(np.asarray(flags_pp), np.asarray(flags_u))
@@ -473,7 +473,7 @@ def test_pipeline_parallel_mti_profile(rng):
             + 1j * rng.standard_normal((4, 32, prof.point_prt))
             ).astype(np.complex64)
     rdm_pp, flags_pp = run(jnp.asarray(echo))
-    rdm_u = mtd_produce(jnp.asarray(echo), prof, use_pallas_rdm=False)
+    rdm_u = mtd_produce(jnp.asarray(echo), prof)
     flags_u, _ = segmented_cfar(rdm_u, prof.cfar_segments, cfg, 4)
     np.testing.assert_array_equal(np.asarray(rdm_pp), np.asarray(rdm_u))
     np.testing.assert_array_equal(np.asarray(flags_pp), np.asarray(flags_u))

@@ -114,8 +114,7 @@ def test_detect_renotch_unshifted_for_g0(rng):
     nv, nr = 256, 64
     rdm = jnp.asarray(np.abs(rng.standard_normal((nv, nr))).astype(np.float32) + 1.0)
     prof = dataclasses.replace(G0_PROFILE, cfar_segments=((0, nr),))
-    flags, _ = detect_rdm(rdm, prof, n_clutter=6, renotch_divisor=20,
-                          use_pallas=False)
+    flags, _ = detect_rdm(rdm, prof, n_clutter=6, renotch_divisor=20)
     # the notched input is re-derived inside; verify by checking which rows
     # self-flag (zeroed rows always flag: 0 >= 0): edges, not the center
     f = np.asarray(flags)

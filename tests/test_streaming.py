@@ -341,7 +341,7 @@ def test_streaming_soak_long_capture(tmp_path, rng):
 
 
 def test_streaming_windowed_path_emission_modes(tmp_path, rng):
-    """The windowed iterator (TPU/mesh-style path, use_host_parallel=False)
+    """The windowed iterator (GPU/mesh-style path, use_host_parallel=False)
     honors the emission modes at the yield boundary."""
     n_frames = 3
     shape = (n_frames, SMALL.prt_per_frame, SMALL.point_prt, SMALL.n_channels)
